@@ -1,10 +1,10 @@
-"""celerite2-tpu: a TPU-native framework for celerite-class Gaussian
-processes, built from scratch on JAX/XLA/Pallas/pjit.
+"""celerite2-tpu: a JAX framework for celerite-class Gaussian
+processes on accelerators, built from scratch on JAX/XLA.
 
 Feature parity target: exoplanet-dev/celerite2 (term DSL, O(N J^2)
 semiseparable solver with O(N J^2) hand-derived gradients, GaussianProcess
 API), plus an internal on-device inference engine (NUTS/HMC, VI, SMC)
-sharded over TPU meshes — the capability the reference delegates to
+sharded over device meshes — the capability the reference delegates to
 PyMC/numpyro/emcee.
 """
 

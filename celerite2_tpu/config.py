@@ -23,94 +23,60 @@ MAX_WIDTH = 32
 J_BUCKETS = (1, 2, 4, 8, 16, 32)
 
 
+_BACKENDS = ("auto", "scan", "assoc")
+_ENGINES = ("auto", "two_level", "associative_scan")
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     """Global solver configuration.
 
     Attributes:
         backend: which op implementation family to use.
-            - "auto": "assoc" above ``assoc_threshold`` rows, else
-              "scan".
+            - "auto": "assoc" above ``assoc_threshold`` rows for traced
+              calls, else "scan".
             - "scan": plain ``lax.scan`` recursions (always correct;
-              best when heavily vmapped, e.g. thousands of NUTS
-              chains, and for small N).
-            - "assoc": parallel prefix-composition formulations; the
-              engine is platform-appropriate — a sqrt(N)-blocked
-              two-level plain-scan on TPU (32x the scan tier at
-              N=1e5), ``lax.associative_scan`` elsewhere.
-            - "pallas": blockwise-sequential Pallas TPU kernels with
-              VMEM-resident carries (~12-13x the scan tier; kept as an
-              explicit backend and the wide-J reverse fallback;
-              interpret mode off-TPU).
-        block_size: rows per grid step for the pallas backend.
-        assoc_threshold: minimum N for "auto" to pick assoc; None
-            (default) resolves per platform — 4096 on TPU, 1024
-            elsewhere.  The engine wins in-graph by >10x from N=256 up,
-            but compiles slowly inside deeply nested samplers; lower
-            this (e.g. to 64) for long production runs at moderate N.
-        pallas_threshold: minimum N for ``backend="pallas"`` to actually
-            route to the Pallas kernels; smaller systems fall back to
-            the scan tier (grid setup dominates below a few hundred
-            rows).
-        engine_block: rows per level of the blocked prefix engine
+              the reference tier, and the cheapest for small N).
+            - "assoc": parallel prefix-composition formulations
+              (log-depth; see ``engine``).
+        assoc_threshold: minimum N for "auto" to pick assoc.  Lower
+            it (e.g. to 64) for long production runs at moderate N.
+        engine_block: rows per level of the ``two_level`` prefix engine
             (sequential steps ~ engine_block * log_block(N); each step
-            batches over N/engine_block blocks).  Throughput is flat
-            for 32-256 on v5e at N=1e5.
+            batches over N/engine_block blocks).
+        engine: prefix-composition engine of the assoc tier.  "auto"
+            means ``lax.associative_scan``; "two_level" selects the
+            recursive blocked scan (``ops.assoc.two_level_prefix``).
         bucket_widths: round J up to the next ``J_BUCKETS`` entry before
             entering the kernels (zero columns are exact no-ops in the
             recursions), bounding XLA recompiles across kernel widths —
-            the TPU analogue of the reference's UNWRAP_CASES switch
+            the analogue of the reference's UNWRAP_CASES switch
             (driver.hpp:27-101).  Widths above ``MAX_WIDTH`` skip
             bucketing.
+        fused_forward: run the log-likelihood forward as ONE
+            Kalman-element engine pass on the assoc tier instead of
+            factor-then-solve.  Off by default; the scan tier always
+            fuses (one data sweep instead of two).
+        paired_reverse: one paired engine pass for the log-likelihood
+            reverse instead of solve-rev + factor-rev.  Off by default.
+        core_dtype: the f64 ISLAND for stiff kernels (see below).
     """
 
-    backend: Literal["auto", "scan", "assoc", "pallas"] = "auto"
-    block_size: int = 1024
-    assoc_threshold: int | None = None
-    pallas_threshold: int = 512
+    backend: Literal["auto", "scan", "assoc"] = "auto"
+    assoc_threshold: int = 1024
     engine_block: int = 32
-    # prefix-composition engine: "auto" = two_level on TPU (where
-    # lax.associative_scan compiles pathologically), associative_scan
-    # elsewhere; force either for testing/benchmarking
     engine: Literal["auto", "two_level", "associative_scan"] = "auto"
     bucket_widths: bool = True
-    # run the fused-loglik forward as ONE kalman-element engine pass on
-    # the assoc tier instead of factor-then-solve: measured ~neutral to
-    # slightly slower on v5e at J=2 (the fatter combine offsets the
-    # saved pass), so off by default; the scan tier always fuses (one
-    # data sweep instead of two is a strict win there)
     fused_forward: bool = False
-    # one paired engine pass for the fused-loglik reverse instead of
-    # solve-rev + factor-rev: wins when per-step latency dominates
-    # (wide J / small N), loses at J<=2 where the joint state's D^3
-    # combine traffic outweighs the saved pass (measured on v5e)
     paired_reverse: bool = False
-    # entry-planes Pallas prefix engine (ops/planes_engine.py): runs
-    # the two-level scheme's sequential loops inside Mosaic kernels on
-    # an entry-per-plane layout (full-tile elementwise combines, no
-    # lax.scan while-loop overhead).  "auto" (default) routes per flow,
-    # per the round-4 TPU A/B (benchmarks/probe_planes_tpu.py): ON for
-    # unbatched traces whose element family has <= planes_max_planes
-    # planes (J=2 loglik+grad measured 1.44x the generic engine at
-    # N=1e5), generic otherwise — fat families (J=4 Riccati: 0.77x) and
-    # vmapped fleets (0.70x at C=32: level-0 serializes C x N / 1024
-    # combines where the generic engine batches chains under its
-    # dispatch floor) lose.  "on"/"off" force globally (on CPU "on"
-    # uses pallas interpret mode; tests pin parity that way).
-    planes: Literal["auto", "on", "off"] = "auto"
-    # "auto" plane-count gate: families with more flat planes than this
-    # lose to the generic engine (measured J=2 riccati 12 / kalman 16 /
-    # J^2-affine 20 all win; J=4 riccati 48 and J^2-affine 272 lose)
-    planes_max_planes: int = 24
     # f64 ISLAND for stiff kernels: when "float64", gp_loglik (and the
     # factorization inside gp_compute) upcast inputs + kernel params
-    # and run under jax.enable_x64 even in an f32 process (TPU), then
+    # and run under jax.enable_x64 even in an f32 process, then
     # downcast the outputs.  Fixes the catastrophic f32 cancellation of
     # eps-regularized terms (Matern32Term: the d(ll)/d(eps) gradient
     # comes out with the WRONG SIGN and ~30x magnitude in f32 —
     # measured; the reference mandates f64 globally for the same
-    # reason, jax/ops.py:84).  TPU f64 is emulated (~5-10x slower), so
-    # this is per-model opt-in rather than global.
+    # reason, jax/ops.py:84).  Per-model opt-in rather than global.
     #
     # COMPOSITION CONTRACT: the island works under jit, grad, and
     # vmap(grad) — MAP fits, VI gradient steps, user loops.  It does
@@ -122,21 +88,16 @@ class Config:
     # instead:  with jax.enable_x64(True): run_nuts(...)  (see
     # benchmarks/configs.py config4).
     core_dtype: Literal["float64"] | None = None
-    # fused slab-resident log-likelihood pipeline (ops/fused_slab.py):
-    # the whole loglik value+grad runs as THREE Mosaic scan kernels
-    # (kalman forward, solve reverse, factor reverse) that build their
-    # monoid elements IN-KERNEL from raw per-row planes, with all glue
-    # between them (distributes, consumers, cotangent seeds, shifted
-    # caches) staying in the kernels' slab layout — one layout
-    # pack/unpack bookends the PIPELINE instead of every engine pass
-    # (the measured round-5 cost center: ~0.15 ms/eval of XLA layout
-    # work per pass).  "auto" routes TPU + unbatched + J <= 4 + K = 1
-    # traces that would take the assoc tier (J <= 2: dense in-kernel
-    # reverse elements; J = 3..4: the structured A/B/C factor
-    # adjoint); "on" forces (interpret mode off-TPU — the CPU
-    # parity-test path); "off" disables.  Measured v5e, N=1e5,
-    # loglik+grad: J=2 0.89 -> 0.28 ms/eval, J=4 3.12 -> 1.02.
-    fused_slab: Literal["auto", "on", "off"] = "auto"
+
+    def __post_init__(self):
+        if self.backend not in _BACKENDS:
+            raise ValueError(
+                f"backend must be one of {_BACKENDS}, got {self.backend!r}"
+            )
+        if self.engine not in _ENGINES:
+            raise ValueError(
+                f"engine must be one of {_ENGINES}, got {self.engine!r}"
+            )
 
 
 _config = Config()
@@ -149,9 +110,8 @@ def _register_trace_state():
     context; this library's config is read at TRACE time (tier
     routing, engine choices), so without this hook a ``set_config``
     after a function was first jitted would silently reuse the stale
-    trace — measured in round 4: re-jitting the same callable after
-    ``set_config(planes='on')`` returned the planes-off executable
-    with 0 s "compile".  Registering a state with
+    trace — re-jitting the same callable after ``set_config(...)``
+    would return the executable traced under the old config.  Registering a state with
     ``include_in_jit_key``/``include_in_trace_context`` makes every
     config change part of the cache key, so traces under different
     configs coexist (no cache clearing) and lookups always match the
@@ -185,6 +145,9 @@ def get_config() -> Config:
 
 def set_config(**kwargs) -> Config:
     """Replace fields of the global config; returns the new config.
+
+    Unknown fields raise ``TypeError`` and unknown ``backend``/``engine``
+    values raise ``ValueError``; nothing is silently re-routed.
 
     The new fingerprint enters JAX's trace-cache key, so jitted
     functions traced under a previous config retrace (once per

@@ -28,6 +28,9 @@ _i64 = ctypes.c_int64
 
 
 def _build():
+    # build to a private name, then rename: concurrent first uses (e.g.
+    # parallel test workers) never load a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = [
         "g++",
         "-O3",
@@ -37,9 +40,10 @@ def _build():
         "-march=native",
         _SRC,
         "-o",
-        _LIB,
+        tmp,
     ]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _LIB)
 
 
 def _get_lib():

@@ -77,10 +77,10 @@ class GPState(NamedTuple):
 # coefficient amplitudes whose f32 cancellation corrupts gradients
 # (measured: d(ll)/d(eps) wrong-signed and ~30x too large at
 # eps=0.01/N=4e3).  The reference's answer is a global f64 mandate
-# (jax/ops.py:84); the TPU-native answer is an opt-in ISLAND: upcast
+# (jax/ops.py:84); the answer here is an opt-in ISLAND: upcast
 # the inputs AND the kernel's parameters, trace the matrix build +
 # factorization under jax.enable_x64 (real f64 semantics even in an
-# f32 process; emulated but supported on TPU), downcast the outputs.
+# f32 process), downcast the outputs.
 # The upcast/downcast casts are differentiable, so grads flow back to
 # the caller's f32 parameters at f64 internal accuracy.
 
@@ -364,15 +364,6 @@ def gp_loglik(kernel, t, y, *, yerr=None, diag=None, mean=0.0):
 
 def _loglik_core(kernel, t, resid, diag_v):
     c, a, U, V = kernel.get_celerite_matrices(t, diag_v)
-
-    from celerite2_tpu.ops.fused_slab import loglik_slab, slab_wanted
-
-    if slab_wanted(t, U, resid):
-        # fused slab pipeline: the whole value+gradient as three Mosaic
-        # kernels with one layout pack/unpack for the PIPELINE (the
-        # per-pass engines pay ~0.1-0.15 ms/eval of XLA layout work per
-        # pass at N=1e5 — the round-5 measured cost center)
-        return loglik_slab(t, c, a, U, V, resid)
     d, _, z = ops.factor_solve(t, c, a, U, V, resid[:, None])
 
     ok = jnp.all(d > 0)
@@ -665,7 +656,8 @@ class ConditionalDistribution:
         z = jax.random.normal(
             key, shape + (cov.shape[0],), dtype=cov.dtype
         )
-        return mu + jnp.einsum("ij,...j->...i", chol, z)
+        return mu + jnp.einsum("ij,...j->...i", chol, z,
+                               precision="highest")
 
     # -------------------------------------------- pathwise sampling
     def _pathwise_transform(self, z, eps, *, regularize=None,
@@ -708,7 +700,7 @@ class ConditionalDistribution:
         result is *exactly* ``N(mean, covariance)`` — same law as
         :meth:`sample` (reference core.py:152-179) — at O(N + M) cost
         per sample instead of O(M^3), so it scales to sampling entire
-        light curves.  TPU-native replacement for the dense path; all
+        light curves.  Replacement for the dense path; all
         pieces (factor, matmul_lower, solves, general matmuls) run on
         the semiseparable engine tiers.
 

@@ -8,8 +8,9 @@ functions over NamedTuple states, vmappable across chains.
 
 The dense-metric linear algebra (Cholesky, triangular solve) is
 Python-unrolled over the (small, static) parameter dimension instead
-of calling ``jnp.linalg`` — LAPACK-backed custom calls don't exist for
-f64 on TPU, and dim is <= a few dozen hyperparameters here.
+of calling ``jnp.linalg``: dim is <= a few dozen hyperparameters here,
+so the unrolled form is one small fused program with no solver custom
+call, in any dtype and under any batching.
 """
 
 from __future__ import annotations
@@ -131,7 +132,7 @@ def welford_variance(state: WelfordState, *, regularize=True):
 def _chol_rows(A):
     """Lower-Cholesky entries of a small SPD matrix as a list of row
     lists, Python-unrolled over the static dimension (works in any
-    dtype on TPU — no LAPACK call)."""
+    dtype — no solver custom call)."""
     dim = A.shape[0]
     rows = [[None] * dim for _ in range(dim)]
     for i in range(dim):
@@ -171,17 +172,24 @@ def _tri_solve_upper(LT_rows, z):
     return jnp.stack(x)
 
 
+# Dense-metric products enter the Hamiltonian, whose differences decide
+# acceptance: keep them out of TF32 (float32 dots on the GPU at default
+# precision keep ~3 decimal digits).
+_HIGHEST = "highest"
+
+
 def mass_matvec(inv_mass, p):
     """inv_mass @ p for either metric shape."""
     if inv_mass.ndim == 2:
-        return inv_mass @ p
+        return jnp.matmul(inv_mass, p, precision=_HIGHEST)
     return inv_mass * p
 
 
 def mass_kinetic(inv_mass, p):
     """0.5 * p^T inv_mass p."""
     if inv_mass.ndim == 2:
-        return 0.5 * jnp.dot(p, inv_mass @ p)
+        return 0.5 * jnp.dot(p, mass_matvec(inv_mass, p),
+                             precision=_HIGHEST)
     return 0.5 * jnp.sum(inv_mass * p**2)
 
 

@@ -1,9 +1,9 @@
 """Fleet-scale adaptive HMC (ChEES-style) — the fixed-trajectory path.
 
-NUTS's data-dependent tree-doubling while-loops cost XLA:TPU a ~12x
-compile multiplier once the chains axis is vmapped (measured; see
-CLAUDE.md), which blocks thousand-chain fleets.  This sampler removes
-every per-chain dynamic loop:
+NUTS's data-dependent tree-doubling while-loops multiply XLA compile
+time once the chains axis is vmapped (batched while-loops), which
+blocks thousand-chain fleets.  This sampler removes every per-chain
+dynamic loop:
 
 * one **shared** jittered trajectory length per iteration (Halton
   sequence), so the leapfrog loop is a single ``lax.fori_loop`` with a
@@ -11,8 +11,7 @@ every per-chain dynamic loop:
   batched leapfrog body regardless of the number of chains;
 * the chain dimension is plain array batching (no per-chain ``vmap`` of
   control flow): the potential is evaluated with ``vmap(value_and_grad)``
-  once per leapfrog step, which is exactly the shape the TPU wants
-  (one big fused batch);
+  once per leapfrog step (one big fused batch);
 * cross-chain adaptation — shared dual-averaging step size on the mean
   acceptance, pooled Welford diagonal mass, and ChEES trajectory-length
   adaptation (Hoffman, Radul & Sountsov 2021): maximize
@@ -25,7 +24,7 @@ every per-chain dynamic loop:
 
 The reference delegates sampling to PyMC/numpyro
 (/root/reference/docs/tutorials/first.ipynb NUTS cells); this module is
-the framework's fleet path replacing that delegation at TPU scale
+the framework's fleet path replacing that delegation at fleet scale
 (BASELINE config 5).  For single/few-chain exploration with unknown
 geometry, NUTS (inference/sampler.py) remains the reference-quality
 default.

@@ -4,7 +4,7 @@ The reference delegates NUTS to PyMC / numpyro (docs/tutorials/
 first.ipynb); here sampling is a first-class on-device component so
 thousands of chains run as one pjit program (SURVEY.md section 7.5).
 
-Design notes (TPU-first):
+Design notes (accelerator-first):
 
 * **Iterative tree doubling** — no recursion; each doubling builds its
   subtree leaf-by-leaf under ``lax.while_loop`` with a static bound, so
@@ -68,8 +68,10 @@ def _ctz(x):
 def _is_uturn(q_minus, q_plus, p_minus, p_plus, inv_mass):
     dq = q_plus - q_minus
     return jnp.logical_or(
-        jnp.dot(dq, mass_matvec(inv_mass, p_minus)) < 0,
-        jnp.dot(dq, mass_matvec(inv_mass, p_plus)) < 0,
+        jnp.dot(dq, mass_matvec(inv_mass, p_minus),
+                precision="highest") < 0,
+        jnp.dot(dq, mass_matvec(inv_mass, p_plus),
+                precision="highest") < 0,
     )
 
 

@@ -110,15 +110,13 @@ def _run_chains(
 ):
     """All chains in ONE scan over steps with a vmapped step body.
 
-    Two structural choices keep XLA compile time bounded (measured at
-    N=1e3 with the parallel-scan op tier on v5e):
+    Two structural choices keep XLA compile time bounded:
       * warmup and sampling share a single ``lax.scan`` whose
         adaptation updates are masked by a static per-step schedule
         (separate scans instantiate the large NUTS tree program twice);
       * chains are vmapped over the *step body* inside the scan,
         ``scan(vmap(step))``, NOT ``vmap(scan(step))`` — vmapping the
-        whole sampler multiplied compile time a further ~10x (28 s ->
-        330 s).
+        whole sampler batches every while-loop of the tree program.
     """
     C, dim = q0.shape
     dtype = q0.dtype
@@ -268,8 +266,8 @@ def run_nuts(
 
     ``dense_mass=True`` adapts a full (dim, dim) covariance metric
     during the slow windows (role of PyMC/numpyro ``dense_mass``);
-    momenta are drawn via a small-dim unrolled Cholesky (TPU-safe,
-    no LAPACK custom call).  Default is the diagonal metric.
+    momenta are drawn via a small-dim unrolled Cholesky (no solver
+    custom call).  Default is the diagonal metric.
 
     ``init_params``: (dim,) or (C, dim).  If (dim,) and ``num_chains``
     is given, chains start from jittered copies.  Pass ``chain_axis``

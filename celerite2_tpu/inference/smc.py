@@ -125,7 +125,7 @@ def run_smc(
     program is written with global shapes and XLA's SPMD partitioner
     turns the global reductions (ESS, evidence, cloud spread, accept
     rate) into psums and the systematic-resampling gather into
-    all_gather + local take — the TPU-native counterpart of an MPI
+    all_gather + local take — the SPMD counterpart of an MPI
     resampling exchange.  The sharding is re-pinned after resampling
     and mutation so the layout survives the whole tempering loop.
     """

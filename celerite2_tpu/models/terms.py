@@ -2,7 +2,7 @@
 
 Functional parity with the reference's term DSL
 (/root/reference/python/celerite2/terms.py:3-826 and the traced variant in
-python/celerite2/jax/terms.py), re-designed TPU-first:
+python/celerite2/jax/terms.py), re-designed for accelerators:
 
 * every term is a registered pytree, so terms can be passed through ``jit``,
   ``grad``, ``vmap`` and ``pjit`` directly (hyperparameters are leaves);
@@ -182,7 +182,7 @@ class Term:
 def _matrices_from_coefficients(x, diag, ar, cr, ac, bc, cc, dc):
     """Vectorized (c, a, U, V) construction.
 
-    TPU-native replacement for the fused C++ fill kernel
+    Replacement for the fused C++ fill kernel
     (reference driver.cpp:422-477): a handful of elementwise ops XLA fuses
     into one pass over the (N, J) matrices.
     """

@@ -37,7 +37,7 @@ __all__ = [
 
 # ==================================================== width bucketing
 #
-# Every distinct J triggers a fresh XLA compile of the scan/assoc/pallas
+# Every distinct J triggers a fresh XLA compile of the scan/assoc
 # programs.  Like the reference's UNWRAP_CASES J-specialization switch
 # (driver.hpp:27-101), J is rounded up to a fixed bucket before entering
 # the kernels: the recursions are exactly invariant to zero columns of
@@ -233,7 +233,7 @@ matmul_upper = _sweep_op(
 # Rectangular cross-covariance products (prediction at new points);
 # forward-only like the reference (definitions.json:264 — no adjoint).
 # The reference uses a sequential two-pointer merge over sorted t1/t2
-# (forward.hpp:285-392); TPU-natively the merge is a vectorized
+# (forward.hpp:285-392); here the merge is a vectorized
 # searchsorted + gather against the scanned carry.
 
 
@@ -266,6 +266,7 @@ def _transported_cumulative(phi, G, *, reverse=False):
     return F
 
 
+@_scan._full_precision
 def general_matmul_lower(t1, t2, c, U, V, Y):
     """Z[n] = sum_{m: t2[m] <= t1[n]} U[n] . diag(e^{-c (t1[n]-t2[m])}) V[m] Y[m].
 
@@ -291,6 +292,7 @@ def general_matmul_lower(t1, t2, c, U, V, Y):
     return jnp.where(has_src[:, None], Z, jnp.zeros_like(Z))
 
 
+@_scan._full_precision
 def general_matmul_upper(t1, t2, c, U, V, Y):
     """Z[n] = sum_{m: t2[m] > t1[n]} U[n] . diag(e^{-c (t2[m]-t1[n])}) V[m] Y[m]."""
     validate_call("general_matmul_upper", t1, t2, c, U, V, Y)
@@ -313,6 +315,7 @@ def general_matmul_upper(t1, t2, c, U, V, Y):
 # ============================================================= to_dense
 
 
+@_scan._full_precision
 def to_dense(t, c, a, U, V):
     """Materialize the dense celerite matrix (O(N^2 J); oracle only —
     reference forward.hpp:19-42)."""

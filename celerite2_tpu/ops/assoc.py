@@ -1,9 +1,10 @@
 """Tier-2 op implementations: log-depth associative scans.
 
 The reference's recursions are strictly sequential over N
-(forward.hpp:111, internal.hpp:138,181).  On TPU, sequential depth is the
-enemy for single large-N evaluations, so every op is reformulated as a
-``jax.lax.associative_scan``:
+(forward.hpp:111, internal.hpp:138,181).  On a parallel accelerator,
+sequential depth is the enemy for single large-N evaluations, so every
+op is reformulated as a prefix composition (``jax.lax.associative_scan``
+or :func:`two_level_prefix`):
 
 * **matmuls** — the carry update ``F_n = diag(phi_n) (F_{n-1} + g_{n-1})``
   is a *diagonal* affine recurrence: elements ``(alpha, beta)`` combine
@@ -70,17 +71,14 @@ __all__ = [
 # Two interchangeable engines compute inclusive prefix compositions of
 # monoid elements:
 #
-#   * ``lax.associative_scan`` — log-depth, minimal work; XLA:CPU/GPU
-#     compile it fine, but the XLA:TPU pipeline takes *minutes* even at
-#     N=1e3 (measured; independent of the combine function).
-#   * ``two_level_prefix`` — a sqrt(N)-blocked formulation in plain
-#     ``lax.scan``: compose within blocks (one scan of ~sqrt(N) steps,
-#     each step batched over all blocks — full VPU/MXU utilization),
-#     chain the block maps (one scan of ~sqrt(N) tiny steps), then one
-#     batched combine distributes block prefixes to every row.  ~2N
-#     combines total, ~2*sqrt(N) sequential steps.  This is the shape
-#     the TPU wants: sequential-per-row kernels are latency-bound at
-#     ~500+ cycles/row whenever a reduction sits on the carried path.
+#   * ``lax.associative_scan`` — log-depth, minimal work; the default
+#     (``Config.engine="auto"``).
+#   * ``two_level_prefix`` — a blocked formulation in plain
+#     ``lax.scan``: compose within blocks (one scan of ``engine_block``
+#     steps, each step batched over all blocks), recurse on the block
+#     maps, then one batched combine distributes block prefixes to
+#     every row.  ~2N combines per level, ~block * log_block(N)
+#     sequential steps.  Selected with ``Config.engine="two_level"``.
 
 
 
@@ -223,40 +221,18 @@ def _vmapped(x) -> bool:
     return isinstance(x, BatchTracer)
 
 
-def _use_two_level() -> bool:
-    from celerite2_tpu.config import get_config
-
-    engine = get_config().engine
-    if engine == "two_level":
-        return True
-    if engine == "associative_scan":
-        return False
-    return jax.default_backend() == "tpu"
-
-
 def _engine_scan(combine, elems, identity, *, reverse=False,
-                 distribute_combine=None, spec=None):
-    """Pick the platform-appropriate prefix-composition engine.
+                 distribute_combine=None):
+    """Run the configured prefix-composition engine.
 
     ``distribute_combine`` is a two-level-only optimization (see
     :func:`two_level_prefix`); the associative_scan path ignores it
     (full results everywhere), so callers may rely only on the leaves
     the reduced combine documents as valid.
-
-    ``spec``: optional :class:`~celerite2_tpu.ops.planes.PlanesSpec`
-    for this element family — routes through the entry-planes Pallas
-    engine (``ops/planes_engine.py``) when enabled, which kills both
-    the per-step ``lax.scan`` overhead and the (J, J)-on-tile layout
-    waste of the generic two-level scheme.
     """
-    if spec is not None:
-        from celerite2_tpu.ops.planes_engine import (
-            planes_wanted, prefix_planes,
-        )
+    from celerite2_tpu.config import get_config
 
-        if planes_wanted(spec, elems):
-            return prefix_planes(spec, elems, reverse=reverse)
-    if _use_two_level():
+    if get_config().engine == "two_level":
         return two_level_prefix(
             combine, elems, identity, reverse=reverse,
             distribute_combine=distribute_combine,
@@ -280,13 +256,9 @@ def _diag_affine_scan(alpha, beta, *, reverse=False):
         a2, b2 = e2
         return a2 * a1, a2 * b1 + b2
 
-    from celerite2_tpu.ops.planes import diag_affine_spec
-
     _, f = _engine_scan(combine, (alpha, beta), _id_diag,
                         reverse=reverse,
-                        distribute_combine=_diag_distribute_b,
-                        spec=diag_affine_spec(
-                            alpha.shape[1:], alpha.dtype))
+                        distribute_combine=_diag_distribute_b)
     return f
 
 
@@ -335,14 +307,14 @@ def matmul_upper_assoc(t, c, U, V, Y):
 def _bmm(A, B):
     """Batched (..., n, m) @ (..., m, k).
 
-    Small matmuls (m < 16) use broadcast-multiply-reduce: XLA lowers
-    batched tiny dots on TPU by padding each operand to an MXU tile —
-    measured ~40 us per (NB, 2, 2) dispatch inside a scan, and even
-    8x8 dots cost 7x at the whole-likelihood level (76 -> 10 ms/eval at
-    J=8, N=1e5).  Contractions of m >= 16 (the J^2-sized reverse block
-    maps) use a real dot_general: there the broadcast intermediate
-    (..., n, m, k) is m^3/element and materializes into GBs under
-    vmapped fleets.
+    Small matmuls (m < 16) use broadcast-multiply-reduce, which XLA
+    fuses with the surrounding elementwise work instead of launching a
+    batched GEMM of tiny tiles.  Contractions of m >= 16 (the J^2-sized
+    reverse block maps) use a real dot_general: there the broadcast
+    intermediate (..., n, m, k) is m^3/element and materializes into
+    GBs under vmapped fleets.  Callers run inside
+    ``default_matmul_precision("highest")`` (``_full_precision``), so
+    the dot_general branch never drops to TF32.
     """
     m = A.shape[-1]
     if m >= 16:
@@ -355,12 +327,6 @@ def _bmv(A, x):
     if A.shape[-1] >= 16:
         return jnp.einsum("...nm,...m->...n", A, x)
     return jnp.sum(A * x[..., None, :], axis=-1)
-
-
-def _planes_affine(D, K, dtype):
-    from celerite2_tpu.ops.planes import mat_affine_spec
-
-    return mat_affine_spec(D, K, dtype)
 
 
 def _mat_affine_combine(e1, e2):
@@ -407,7 +373,6 @@ def solve_lower_assoc(t, c, U, W, Y):
         A_pref, b_pref = _engine_scan(
             _mat_affine_combine, (A, b), _id_affine,
             distribute_combine=_affine_distribute_b,
-            spec=_planes_affine(J, Y.shape[1], U.dtype),
         )
     F_post = b_pref  # applied to F_init = 0
     Z = Y - jnp.sum(U[:, :, None] * F_post, axis=1)
@@ -440,7 +405,6 @@ def solve_upper_assoc(t, c, U, W, Y):
         A_pref, b_pref = _engine_scan(
             _mat_affine_combine, (A, b), _id_affine, reverse=True,
             distribute_combine=_affine_distribute_b,
-            spec=_planes_affine(J, Y.shape[1], U.dtype),
         )
     F_post = b_pref
     Z = Y - jnp.sum(W[:, :, None] * F_post, axis=1)
@@ -464,8 +428,8 @@ def _small_inv(M):
     """Batched closed-form inverse of a J x J matrix (J = 1, 2, or a
     power of two via 2x2-block Schur recursion; other J are bordered).
 
-    No pivoting / argmax: the pivoted Gauss-Jordan fallback makes the
-    TPU XLA pipeline's compile time explode (minutes at N=1e3).  The
+    No pivoting / argmax: a pivoted Gauss-Jordan fallback would put
+    data-dependent gathers in every combine of the engine.  The
     matrices inverted here are ``I + Q R`` Riccati Gram combinations,
     which are far from singular for valid (positive-definite) systems —
     but invertibility of the FULL matrix does not guarantee
@@ -592,15 +556,12 @@ def factor_assoc(t, c, a, U, V):
     Q = jnp.concatenate([jnp.zeros((1, J, J), U.dtype), Q_body], axis=0)
     R = jnp.concatenate([jnp.zeros((1, J, J), U.dtype), R_body], axis=0)
 
-    # TPU f32 matmuls default to bf16 on the MXU; 1e5 Riccati
-    # compositions need full precision or pivots go negative
+    # f32 matmuls may run in TF32 on the GPU (~3 decimal digits);
+    # 1e5 Riccati compositions need full precision or pivots go negative
     with jax.default_matmul_precision("highest"):
-        from celerite2_tpu.ops.planes import riccati_spec
-
         _, S_full, _ = _engine_scan(
             _riccati_combine, (A, Q, R), _id_riccati,
             distribute_combine=_riccati_distribute_Q,
-            spec=riccati_spec(J, U.dtype),
         )
     # S applied to S_init = 0 is just the combined Q
     d = a - jnp.sum(_bmv(S_full, U) * U, axis=-1)
@@ -742,12 +703,9 @@ def factor_solve_assoc(t, c, a, U, V, Y):
     )
 
     with jax.default_matmul_precision("highest"):
-        from celerite2_tpu.ops.planes import kalman_spec
-
         _, S_full, _, F_post, _ = _engine_scan(
             _kalman_combine, (A, Q, R, b, eta), _id_kalman,
             distribute_combine=_kalman_distribute,
-            spec=kalman_spec(J, K, U.dtype),
         )
     # prefix applied to (S0, F0) = (0, 0): S = combined Q, F = combined b
     d = a - jnp.sum(_bmv(S_full, U) * U, axis=-1)
@@ -786,12 +744,11 @@ def factor_solve_assoc(t, c, a, U, V, Y):
 
 
 def _suffix_states(elems, combine, identity, *, reverse,
-                   distribute_combine=None, spec=None):
+                   distribute_combine=None):
     """Inclusive prefix/suffix composition results for affine elements."""
     with jax.default_matmul_precision("highest"):
         return _engine_scan(combine, elems, identity, reverse=reverse,
-                            distribute_combine=distribute_combine,
-                            spec=spec)
+                            distribute_combine=distribute_combine)
 
 
 @_full_precision
@@ -836,7 +793,6 @@ def sweep_rev_assoc(t, c, A, B, Y, Z, F, bZ, *, is_solve, upper):
             (Amat, bvec), _mat_affine_combine, _id_affine,
             reverse=not upper,
             distribute_combine=_affine_distribute_b,
-            spec=_planes_affine(J, K, dtype),
         )  # applied to zero init
     else:
         alpha = jnp.broadcast_to(p[:, :, None], (p.shape[0], J, K))
@@ -849,12 +805,9 @@ def sweep_rev_assoc(t, c, A, B, Y, Z, F, bZ, *, is_solve, upper):
             a2, b2 = e2
             return a2 * a1, a2 * b1 + b2
 
-        from celerite2_tpu.ops.planes import diag_affine_spec
-
         _, R = _suffix_states(
             (alpha, beta), diag_combine, _id_diag, reverse=not upper,
             distribute_combine=_diag_distribute_b,
-            spec=diag_affine_spec(alpha.shape[1:], dtype),
         )
 
     # carry entering step n: the state AFTER the neighbouring step
@@ -1020,7 +973,6 @@ def _frev_suffix_states(par, *, block=None):
         L_pref, c_pref = _engine_scan(
             _mat_affine_combine, (L_blk, c_blk[..., None]), _id_affine,
             distribute_combine=_affine_distribute_b,
-            spec=_planes_affine(J * J, 1, dtype),
         )
     # exclusive prefix applied to the zero init -> incoming block state
     c_excl = jnp.concatenate(
@@ -1402,7 +1354,6 @@ def _frev_suffix_states_dense(p, u, w, bv0n, bdpn):
     _, R = _suffix_states(
         (L, Cv[..., None]), _mat_affine_combine, _id_affine,
         reverse=True, distribute_combine=_affine_distribute_b,
-        spec=_planes_affine(J * J, 1, dtype),
     )
     R = R.reshape(-1, J, J)  # bS after each step (applied to zero init)
     # carry entering step n = state after step n+1
@@ -1436,12 +1387,10 @@ def factor_rev_assoc(t, c, a, U, V, d, W, S, bd, bW):
     bdpn = bdp[1:]
 
     if J <= 2 and not _vmapped(U):
-        # measured faster ONLY at J <= 2 for SINGLE evaluations:
+        # dense route only at J <= 2 for SINGLE evaluations:
         # materializing the (J^2, J^2) linear part per row is cheap for
-        # 4x4 maps, but at J = 4 the 16-wide map dims hit the TPU's
-        # (8, 128) tile padding (8x memory) and the dense route is ~5x
-        # SLOWER than structured (and 14x slower at J = 8); vmapped
-        # fleets always take the structured O(C N J^2) scheme.
+        # 4x4 maps but grows as J^4 per row; vmapped fleets always take
+        # the structured O(C N J^2) scheme.
         M_in = _frev_suffix_states_dense(p, u, w, bv0n, bdpn)
     else:
         M_in = _frev_suffix_states((p, u, w, bv0n, bdpn))

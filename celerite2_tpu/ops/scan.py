@@ -5,7 +5,7 @@ These are direct JAX formulations of the O(N J^2) semiseparable recursions
 forward.hpp, internal.hpp and reverse.hpp — not translations of the C++).
 They are always correct, fully vmappable (thousands of NUTS chains batch
 through the same scan), and serve as the oracle tier for the parallel
-(associative / blocked / Pallas) backends.
+(associative / blocked) backends.
 
 Shapes: ``t (N,)``, ``c (J,)``, ``a (N,)``, ``U (N, J)``, ``V (N, J)``,
 ``Y (N, K)``.  The transport factor is
@@ -38,9 +38,10 @@ __all__ = [
 
 
 def _full_precision(fn):
-    """The J-sized matmuls inside the recursions must not fall back to
-    bf16 on the TPU MXU (XLA's default): gradients lose ~3 digits.
-    Cost is negligible at J <= 32."""
+    """The J-sized matmuls inside the recursions must not run in TF32,
+    which XLA may pick for float32 dots on the GPU at default precision
+    (~3 decimal digits: gradients lose that much).  Cost is negligible
+    at J <= 32."""
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):

@@ -10,10 +10,12 @@ Multi-host wiring (SURVEY.md section 5.8): call
 :func:`initialize_distributed` once per process before any jax call
 that touches devices, then build the mesh with ``make_mesh`` — it spans
 every process's devices and, when more than one host participates, lays
-the mesh out host-major so that the CHAINS axis crosses the
-data-center network (embarrassingly parallel — only scalar adaptation
-psums ride DCN) while the SEQ axis, which exchanges O(J^2) carries
-every likelihood, stays inside each host's ICI domain.
+the mesh out host-major so that the CHAINS axis crosses the network
+between hosts (embarrassingly parallel — only scalar adaptation psums
+leave a host) while the SEQ axis, which exchanges O(J^2) carries every
+likelihood, stays on the NVLink fabric inside each host.  Within one
+host every GPU reaches every other at the same NVLink rate, so the
+single-host mesh shape follows the algorithm alone.
 
 Launch example (one process per host)::
 
@@ -57,8 +59,11 @@ def initialize_distributed(
     """Join the multi-process JAX runtime (wraps
     ``jax.distributed.initialize``).
 
-    With no arguments, cluster auto-detection is used (TPU pods and
-    most schedulers set the environment for it).  Safe to call when
+    With no arguments, cluster auto-detection is used (schedulers such
+    as SLURM set the environment for it); elsewhere pass
+    ``coordinator_address`` (e.g. ``"localhost:8476"`` for several
+    processes on one host), ``num_processes`` and ``process_id``.  Safe
+    to call when
     already initialized (logged and ignored).
     """
     try:
@@ -87,9 +92,9 @@ def make_mesh(chains: int = 1, seq: int = 1, *, devices=None) -> Mesh:
     """Build a (chains, seq) mesh over the available devices.
 
     Multi-process: devices are arranged host-major, so contiguous
-    ``seq`` groups live inside one host (carry exchanges ride ICI) and
-    the ``chains`` axis spans hosts (DCN carries only adaptation
-    scalars).  ``seq`` must therefore divide the per-host device count
+    ``seq`` groups live inside one host (carry exchanges ride NVLink)
+    and the ``chains`` axis spans hosts (the inter-host network carries
+    only adaptation scalars).  ``seq`` must therefore divide the per-host device count
     when more than one process participates.
     """
     devices = list(devices) if devices is not None else jax.devices()
@@ -104,7 +109,7 @@ def make_mesh(chains: int = 1, seq: int = 1, *, devices=None) -> Mesh:
         if seq > per_host or per_host % seq:
             raise ValueError(
                 f"seq={seq} must divide the per-host device count "
-                f"({per_host}) so sequence carries stay on ICI"
+                f"({per_host}) so sequence carries stay inside a host"
             )
         # jax.devices() is already process-major; keep that order so
         # each host contributes whole seq-groups

@@ -2,7 +2,7 @@
 reference python/celerite2/testing.py: get_matrices:10-49,
 check_tensor_term:71-180, check_gp_models:183-201).  Where the
 reference compares NumPy/JAX/PyMC backends, this framework compares its
-op-implementation tiers (scan / assoc / pallas) against each other."""
+op-implementation tiers (scan / assoc) against each other."""
 
 from __future__ import annotations
 
@@ -104,12 +104,7 @@ def check_term(term, ref_term, x=None, tau=None, omega=None, atol=1e-8):
 def check_gp_backends(kernel, backends=("scan", "assoc"), *, size=120,
                       atol=1e-8):
     """Full GP-surface parity across op backends (analogue of the
-    reference's ``check_gp_models``, testing.py:183-201).
-
-    A backend entry may carry a ``"+planes"`` suffix (e.g.
-    ``"assoc+planes"``) to force the entry-planes Pallas engine for
-    that arm (interpret mode off-TPU), so the engine the 'auto' routing
-    enables on TPU is covered by the same GP-surface oracle."""
+    reference's ``check_gp_models``, testing.py:183-201)."""
     import dataclasses
 
     import jax
@@ -128,11 +123,7 @@ def check_gp_backends(kernel, backends=("scan", "assoc"), *, size=120,
     prior = get_config()
     try:
         for backend in backends:
-            base, _, extra = backend.partition("+")
-            set_config(
-                backend=base, assoc_threshold=1,
-                planes="on" if extra == "planes" else prior.planes,
-            )
+            set_config(backend=backend, assoc_threshold=1)
             gp = GaussianProcess(kernel, t=t, yerr=yerr)
             cond = gp.condition(y, t=t_new)
             results[backend] = dict(

@@ -1,5 +1,5 @@
 """Runnable version of docs/tutorial.md (small sizes so it finishes in
-about a minute on CPU; raise N / chain counts on TPU).
+about a minute on CPU; raise N / chain counts on a GPU).
 
     python docs/tutorial.py
 """
@@ -143,7 +143,7 @@ print("cite:", ", ".join(keys))
 # observed site (reference jax/distribution.py role).
 # PyMC: one black-box likelihood Op wraps the jitted JAX density —
 # kernels stay in THIS package's term DSL; with pymc.sampling.jax the
-# whole model compiles to a single XLA program (runs on TPU):
+# whole model compiles to a single XLA program:
 #
 #   from celerite2_tpu.pymc_support import celerite_loglik_op
 #   op = celerite_loglik_op(

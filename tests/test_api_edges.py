@@ -128,8 +128,7 @@ def test_set_config_invalidates_jit_trace_cache():
     identity, and this library's config is read at trace time — so
     re-jitting the same callable after ``set_config`` must RETRACE
     under the new config (the fingerprint participates in the trace
-    context), not silently reuse the stale executable (which is what
-    invalidated the round-3 planes A/B probe)."""
+    context), not silently reuse the stale executable."""
     from celerite2_tpu.config import get_config, set_config
 
     seen = []

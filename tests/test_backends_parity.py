@@ -33,12 +33,19 @@ def test_gp_backend_parity(kernel):
     check_gp_backends(kernel, backends=("scan", "assoc"))
 
 
-def test_gp_backend_parity_planes():
-    """The engine the TPU 'auto' routing enables, under the same
-    GP-surface oracle (one J=2 kernel: interpret mode is compile-heavy
-    and the per-family parity grid lives in tests/test_planes.py)."""
-    check_gp_backends(
-        SHOTerm(sigma=1.5, rho=3.4, tau=2.3),
-        backends=("scan", "assoc+planes"),
-        size=90,
-    )
+@pytest.mark.parametrize("engine", ["two_level", "associative_scan"])
+def test_gp_backend_parity_engines(engine):
+    """Both prefix engines of the assoc tier under the same GP-surface
+    oracle (one J=2 kernel)."""
+    from celerite2_tpu.config import get_config, set_config
+
+    prior = get_config()
+    try:
+        set_config(engine=engine)
+        check_gp_backends(
+            SHOTerm(sigma=1.5, rho=3.4, tau=2.3),
+            backends=("scan", "assoc"),
+            size=90,
+        )
+    finally:
+        set_config(**prior.__dict__)

@@ -20,10 +20,10 @@ from celerite2_tpu.testing import get_matrices
 
 @pytest.fixture(
     autouse=True,
-    # the assoc arm re-derives every gradient through the two-level
+    # the assoc arm re-derives every gradient through the prefix
     # engine's much larger graphs (~3x the compile time of the scan
-    # arm); the fast tier keeps the scan-arm oracle checks and the
-    # planes/fused-slab suites cover the engine paths
+    # arm); the fast tier keeps the scan-arm oracle checks, and
+    # test_assoc_geometry.py covers the engine paths
     params=["scan", pytest.param("assoc", marks=pytest.mark.slow)],
 )
 def _backend(request):

@@ -208,9 +208,9 @@ def test_particle_sharded_smc(mesh8):
 
 
 def test_two_level_engine_inside_shard_map():
-    """The TPU multichip path runs two_level_prefix INSIDE shard_map;
-    exercise that combination explicitly on the CPU mesh (the platform
-    check would otherwise route CPU tests to lax.associative_scan)."""
+    """engine="two_level" runs two_level_prefix INSIDE shard_map;
+    exercise that combination explicitly on the CPU mesh (the default
+    engine is lax.associative_scan)."""
     import jax
     from jax import lax
     from jax.sharding import Mesh, PartitionSpec as P
